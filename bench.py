@@ -1,7 +1,7 @@
 """Benchmark: V-PCC rate-distortion + encode throughput on a vox10-class
-GOF (real device).
+GOF (GPU; exits before any work when JAX finds none).
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "detail"}.
+Prints the device and each card's name and power limit, then ONE JSON line: {"metric", "value", "unit", "vs_baseline", "detail"}.
 - value/vs_baseline: encode frames/s/chip at CTC r3 against the documented
   TMC2 single-thread anchor (see ANCHOR.md for the derivation; the anchor
   is pinned at the optimistic end of the documented range so vs_baseline
@@ -60,20 +60,14 @@ def bd_rate(anchor, test):
     avg_t = (np.polyval(it, hi) - np.polyval(it, lo)) / (hi - lo)
     return float((10.0 ** (avg_t - avg_a) - 1.0) * 100.0)
 
-RATE_CFGS = {
-    "r1": "/root/reference/cfg/rate/ctc-r1.cfg",
-    "r2": "/root/reference/cfg/rate/ctc-r2.cfg",
-    "r3": "/root/reference/cfg/rate/ctc-r3.cfg",
-    "r4": "/root/reference/cfg/rate/ctc-r4.cfg",
-    "r5": "/root/reference/cfg/rate/ctc-r5.cfg",
-}
+RATES = ("r1", "r2", "r3", "r4", "r5")
 
 
-def _make_cfg(rate_cfg: str):
-    from vpcc_tpu.utils.config import VPCCConfig
+def _make_cfg(rate: str):
+    from vpcc_tpu.utils.config import VPCCConfig, ctc_cfg
 
     cfg = VPCCConfig.from_cfg_files(
-        "/root/reference/cfg/common/ctc-common.cfg", rate_cfg
+        ctc_cfg("common", "ctc-common"), ctc_cfg("rate", "ctc-" + rate)
     )
     cfg.geometry3dCoordinatesBitdepth = 10
     cfg.resolution = 1023
@@ -91,6 +85,9 @@ def _make_cfg(rate_cfg: str):
 
 
 def main():
+    from vpcc_tpu.utils.device import require_gpu
+
+    require_gpu("bench")
     from vpcc_tpu.encoder import Encoder
     from vpcc_tpu.ops.metrics import compute_metrics, estimate_normals
     from vpcc_tpu.utils.synthetic import make_person_cloud
@@ -111,10 +108,10 @@ def main():
     rd_curve = []
     fps_r3 = 0.0
     stages = {}
-    for rate, rate_cfg in RATE_CFGS.items():
-        cfg = _make_cfg(rate_cfg)
+    for rate in RATES:
+        cfg = _make_cfg(rate)
         enc = Encoder(cfg)
-        # warm pass per rate point: XLA compiles are a per-machine cost
+        # warm pass per rate point: XLA compiles are a per-cache cost
         # (persistent .jax_cache), not a per-frame cost — the timed pass
         # below measures the steady-state regime a 300-frame CTC run
         # amortizes to.  The warm pass also settles the height ratchet so

@@ -1,8 +1,8 @@
 // Adaptive binary arithmetic coder + coefficient/occupancy syntax.
 //
-// Native entropy backend for the TPU video codec (vpcc_tpu/video/intra.py).
+// Native entropy backend for the video codecs (video/intra.py, video/hevc.py).
 // Plays the role HM's CABAC plays for the reference's video substreams
-// (reference: dependencies/hm-modification/... TEncBinCABAC) — the TPU does
+// (reference: dependencies/hm-modification/... TEncBinCABAC) — the device does
 // transform/quant/prediction; the bit-serial arithmetic coding finalizes
 // here on the host.
 //
@@ -267,7 +267,7 @@ int64_t vpcc_decode_binary_plane(const uint8_t* data, int64_t size,
 // 8-pixel cells) + quantized coefficients in zigzag order (cbf flag w/
 // neighbor context, context-coded last-significant position, banded
 // significance, greater1/greater2 flags, Exp-Golomb remainder, bypass
-// sign).  Mirrors the role of HM's CABAC for our TPU wavefront codec.
+// sign).  Mirrors the role of HM's CABAC for our wavefront codec.
 
 namespace {
 

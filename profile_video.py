@@ -2,7 +2,9 @@
 
 Measures steady-state encode_planes time for geometry (P=1 intra, P=1
 motion) and attribute shapes (luma P=1, chroma P=2), plus batched variants
-(P=2/4) to quantify the level-parallel amortization.  Run manually.
+(P=2/4) to quantify the level-parallel amortization.  Run manually on a GPU
+(`python profile_video.py`); it prints the device and each card's name and
+power limit first, and exits before any work when JAX finds no GPU.
 """
 import time
 
@@ -37,6 +39,9 @@ def bench(label, fn, *a, n=3, **kw):
 
 
 def main():
+    from vpcc_tpu.utils.device import require_gpu
+
+    require_gpu("profile_video")
     occ = jnp.asarray((rng.random((H, W)) < 0.5).astype(np.int32))
     w_a = occ
     for P in (1, 2, 4):

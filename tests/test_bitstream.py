@@ -296,7 +296,7 @@ def test_ptl_aaps_and_new_seis_roundtrip():
     assert all(hash_ok)
     assert seis2["aaps"] == aaps
     assert seis2[v3c.SEI_COMPONENT_CODEC_MAPPING].mappings[0] == (
-        v3c.CODEC_TPU_HEVC, "tpuh"
+        v3c.CODEC_NATIVE_HEVC, "tpuh"
     )
     assert seis2[v3c.SEI_ATTRIBUTE_TRANSFORMATION_PARAMS].params == [
         (0, 0, 65536, -12)

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 
 from vpcc_tpu.bitstream.bitio import BitReader, BitWriter
-from vpcc_tpu.utils.config import VPCCConfig
+from vpcc_tpu.utils.config import VPCCConfig, ctc_cfg
 from vpcc_tpu.utils.ply import PointCloudData, read_ply, write_ply
 from vpcc_tpu.utils.synthetic import make_person_cloud, make_sphere_cloud
 
@@ -18,10 +18,10 @@ def test_config_defaults():
 
 def test_config_loads_reference_ctc_files():
     cfg = VPCCConfig.from_cfg_files(
-        "/root/reference/cfg/common/ctc-common.cfg",
-        "/root/reference/cfg/condition/ctc-all-intra.cfg",
-        "/root/reference/cfg/sequence/longdress_vox10.cfg",
-        "/root/reference/cfg/rate/ctc-r3.cfg",
+        ctc_cfg("common", "ctc-common"),
+        ctc_cfg("condition", "ctc-all-intra"),
+        ctc_cfg("sequence", "longdress_vox10"),
+        ctc_cfg("rate", "ctc-r3"),
     )
     assert cfg.geometryQP == 24
     assert cfg.attributeQP == 32

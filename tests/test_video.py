@@ -1,4 +1,4 @@
-"""TPU video codec tests: transform, entropy, intra codec, color, padding."""
+"""Video codec tests: transform, entropy, intra codec, color, padding."""
 
 import numpy as np
 import pytest

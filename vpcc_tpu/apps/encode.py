@@ -48,7 +48,7 @@ def main(argv=None) -> int:
     conf_log = []
     fidx = cfg.startFrameNumber
     done = 0
-    # GOF-granular checkpoint/resume (SURVEY.md §5: a preempted pod slice
+    # GOF-granular checkpoint/resume (SURVEY.md §5: a preempted job
     # resumes at the next GOF; each GOF is a self-contained length-prefixed
     # sample stream).  --resumeEncoding=1 skips GOFs already on disk.  A
     # sidecar records the gof size / start frame the checkpoints were

@@ -5,7 +5,7 @@ Behavioral reference: `PCCEncoder::packFlexible`
 size, first-fit raster scan over the block grid trying a preference-ordered
 list of orientations, growing the canvas height when nothing fits.
 
-TPU-era re-design: instead of the reference's per-position/per-block triple
+Re-design: instead of the reference's per-position/per-block triple
 loop, each patch's valid placements are computed in ONE vectorized 2D
 correlation of the canvas block-occupancy with the patch footprint (exact
 per-block overlap test), then the first raster-order hit is chosen — same

@@ -1,6 +1,6 @@
 """Device point-cloud data model: padded, statically-shaped pytrees.
 
-TPU-first re-design of the reference's `PCCPointSet3`
+Array re-design of the reference's `PCCPointSet3`
 (reference: source/lib/PccLibCommon/include/PCCPointSet.h:42): instead of a
 dynamically-sized AoS container, a pytree of fixed-size SoA arrays padded to a
 static capacity so every downstream kernel compiles once per capacity bucket.

@@ -4,9 +4,9 @@ Capability match for the reference's `PCCNormalsGenerator3`
 (reference: source/lib/PccLibEncoder/source/PCCNormalsGenerator.cpp:61-185):
 per-point covariance of the k nearest neighbors, smallest eigenvector.
 
-TPU-first deviations:
+Device-side deviations:
 - the eigen-solve is a closed-form symmetric-3x3 trigonometric solver
-  (pure VPU elementwise math, no LAPACK batching);
+  (pure elementwise math, no LAPACK batching);
 - orientation: the reference's default is a *sequential* minimum-spanning-tree
   sign propagation (PCCNormalsGenerator.cpp:186-249) which cannot be
   parallelized without serialization; we use a radially-outward
@@ -111,7 +111,10 @@ def orient_normals(
 
     def body(_, sign):
         n_signed = normals * sign[:, None]
-        agree = jnp.einsum("nkc,nc->nk", n_signed[nn_idx], n_signed)
+        agree = jnp.einsum(
+            "nkc,nc->nk", n_signed[nn_idx], n_signed,
+            precision=jax.lax.Precision.HIGHEST,
+        )
         vote = jnp.sum(agree * nmask, axis=1)
         return jnp.where(vote < 0.0, -sign, sign)
 
@@ -125,7 +128,7 @@ def compute_normals(positions, nn_idx, nn_valid, valid,
     """PCA normals + orientation.  `mode` mirrors the reference
     normalOrientation enum (PCCNormalsGenerator.h): 0 = none,
     1 = spanning tree (our default runs the consensus iteration, the
-    TPU-native equivalent that converges to the same orientation on
+    data-parallel equivalent that converges to the same orientation on
     surface clouds; `mode=4` forces the exact seed-flood propagation),
     2 = view point, 3 = cubemap (falls back to consensus)."""
     n = pca_normals(positions, nn_idx, nn_valid)
@@ -165,7 +168,7 @@ def orient_normals_spanning_tree(
 ) -> jax.Array:
     """Spanning-tree orientation as device flood propagation (reference
     PCCNormalsGenerator.cpp:186-252 orientNormals builds a sequential MST
-    and propagates the seed's sign edge by edge).  TPU form: the seed is
+    and propagates the seed's sign edge by edge).  Data-parallel form: the seed is
     the highest point (normal forced upward, as the reference seeds from
     an extremal point); each sweep assigns every still-unsigned point the
     sign that best agrees with its already-signed neighbors, weighted by
@@ -193,7 +196,10 @@ def orient_normals_spanning_tree(
 
     def body(state):
         i, sign = state
-        dot = jnp.einsum("nkc,nc->nk", normals[nn_idx], normals)  # (N, K)
+        dot = jnp.einsum(
+            "nkc,nc->nk", normals[nn_idx], normals,
+            precision=jax.lax.Precision.HIGHEST,
+        )  # (N, K)
         s_nb = sign[nn_idx]                                       # (N, K)
         vote = jnp.sum(dot * s_nb * nmask, axis=1)
         newly = (sign == 0.0) & (jnp.abs(vote) > 1e-6)

@@ -6,7 +6,7 @@ Behavioral reference: the encoder's padding stack — sparse-linear dilation
 filled with a smooth continuation of the occupied signal so the block
 transform doesn't spend bits on artificial edges.
 
-TPU-first: the push-pull pyramid is a logarithmic sequence of 2x2
+Array form: the push-pull pyramid is a logarithmic sequence of 2x2
 average-pool (push) and broadcast-fill (pull) steps — pure reshapes and
 elementwise ops that XLA fuses; no sequential raster scans.
 """

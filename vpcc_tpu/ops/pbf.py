@@ -22,7 +22,7 @@ Reference algorithm (PCCPatch.cpp:851-948):
      than to its one-step-eroded position (sumE), over a window oriented
      along the local boundary direction (:900-946).
 
-TPU-first design: everything runs on the CANVAS, not per-patch local maps —
+Design: everything runs on the CANVAS, not per-patch local maps —
 one fused device program over all H*W pixels.  Border detection is a shifted
 -mask stencil; neighbor-depth is a (border-points x patches) broadcast with a
 scatter-min onto the canvas; the filter passes are window gathers with the

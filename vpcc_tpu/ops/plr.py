@@ -9,7 +9,7 @@ PCCCommon.h:130); encoder mode RDO `pointLocalReconstructionSearch`
 table `g_pointLocalReconstructionMode`
 (source/lib/PccLibEncoder/source/PCCEncoderParameters.cpp:40).
 
-TPU-first design: everything is full-plane VPU work, no per-point loops.
+Design: everything is full-plane elementwise work, no per-point loops.
 
 - In the RELATIVE depth domain both projection modes collapse to one
   expression: the reference computes window deltas in absolute normal
@@ -25,7 +25,7 @@ TPU-first design: everything is full-plane VPU work, no per-point loops.
   formula as the EOM layers in ops/reconstruct.py.
 - The encoder RDO evaluates ALL modes as a small stacked tensor program:
   per-pixel symmetric depth-set distance between the generated depth lanes
-  and the true (D0, D1) depths, block-summed, argmin — the TPU equivalent
+  and the true (D0, D1) depths, block-summed, argmin — the data-parallel equivalent
   of the reference's per-block reconstruct+distanceGeo loop.
 """
 

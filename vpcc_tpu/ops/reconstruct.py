@@ -6,7 +6,7 @@ look up the owning patch (block-to-patch), invert the packing orientation to
 patch (u,v), rebuild the 3D point from the D0 depth map, plus the second
 layer from the D1 map (deduplicated when equal).
 
-TPU-first design: one fused data-parallel pass over all H*W pixels — patch
+Design: one fused data-parallel pass over all H*W pixels — patch
 parameters are gathered per pixel from a flat SoA table; there is no
 per-patch loop.  This is the #1 hot kernel of the decode path (SURVEY §3.3).
 """

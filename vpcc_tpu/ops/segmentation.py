@@ -7,7 +7,7 @@ Reference behavior (source/lib/PccLibEncoder/source/PCCPatchSegmenter.cpp):
   orientation maximizing  normal . orientation + (lambda/K) * (#neighbors in
   that orientation);  the grid-based variant (:1386) is an optimization of the
   same objective.  Here the voting refinement is a dense one-hot
-  neighbor-count matmul — an MXU-friendly formulation.
+  neighbor-count sum — a dense, branch-free formulation.
 
 Orientation sets: 6 axis-aligned planes (PPI 0-5; +X+Y+Z use projection mode
 0/min, -X-Y-Z mode 1/max), optional 45-degree additional planes (PPI 6..17,
@@ -24,6 +24,10 @@ import jax.numpy as jnp
 import numpy as np
 
 _S2 = math.sqrt(2.0) / 2.0
+
+# The scores below decide partitions, which are syntax: true f32 products
+# (an f32 contraction without a precision argument may run in TF32 on GPUs)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 ORIENTATIONS6 = np.array(
     [
@@ -116,11 +120,15 @@ def initial_segmentation(
     orientations: jax.Array,   # (J, 3) f32
     weights: jax.Array,        # (J,) f32 per-orientation weight
 ) -> jax.Array:
-    score = jnp.einsum("nc,jc->nj", normals, orientations) * weights[None, :]
+    score = jnp.einsum(
+        "nc,jc->nj", normals, orientations, precision=_HIGHEST
+    ) * weights[None, :]
     # orientation 0 is unweighted for the tie-break ordering of the reference
     # (it takes orientation 0's raw score as the initial best): replicate by
     # comparing j>0 against weighted scores but j=0 raw.
-    score = score.at[:, 0].set(jnp.einsum("nc,c->n", normals, orientations[0]))
+    score = score.at[:, 0].set(
+        jnp.einsum("nc,c->n", normals, orientations[0], precision=_HIGHEST)
+    )
     return jnp.argmax(score, axis=1).astype(jnp.int32)
 
 
@@ -135,7 +143,7 @@ def high_gradient_aux(
     1874-1940): `alt` = best orientation other than the assigned one,
     `weak` = the assigned orientation's score <= 0.577 (a normal at the
     45-degree diagonal, the reference's normalThreshold)."""
-    score = jnp.einsum("nc,jc->nj", normals, orientations)
+    score = jnp.einsum("nc,jc->nj", normals, orientations, precision=_HIGHEST)
     org = jnp.take_along_axis(score, partition[:, None], axis=1)[:, 0]
     weak = org <= 0.577
     masked = score - 1e9 * jax.nn.one_hot(partition, score.shape[1])
@@ -155,7 +163,9 @@ def refine_segmentation(
 ) -> jax.Array:
     """Smoothness-regularized re-assignment, synchronous updates."""
     J = orientations.shape[0]
-    base = jnp.einsum("nc,jc->nj", normals, orientations)  # (N, J) data term
+    base = jnp.einsum(
+        "nc,jc->nj", normals, orientations, precision=_HIGHEST
+    )  # (N, J) data term
     k_norm = jnp.maximum(jnp.sum(nn_valid, axis=1, keepdims=True), 1).astype(jnp.float32)
     wmask = nn_valid.astype(jnp.float32)
 

@@ -9,7 +9,7 @@ high-gradient pixels and either sit within surfaceThickness of D0 or have a
 normal that does not face the projection plane (score <= 0.577), then
 re-cluster the removed points to their best alternative orientation.
 
-TPU-split: the per-point normal scores (`weak`, `alt_part`) come from the
+Device/host split: the per-point normal scores (`weak`, `alt_part`) come from the
 device segmentation pass (ops/segmentation.high_gradient_aux); the per-patch
 map work here is vectorized numpy on the small D0 maps (same host tier as
 patch construction).  The reference's BFS regrouping of removed points

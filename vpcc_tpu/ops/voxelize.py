@@ -8,7 +8,7 @@ on the ~3-5x smaller voxel cloud, then map the per-voxel results back to
 points — the reference's own answer to 1M-point frames, and the dominant
 lever on segmentation + patch-generation wall clock.
 
-TPU-first shape handling: the voxel arrays are produced at the padded point
+Shape handling: the voxel arrays are produced at the padded point
 capacity with a device-computed voxel count; the caller downloads that one
 scalar and re-slices to a smaller static bucket so every downstream kernel
 (KNN, normals, refine, CC) runs at voxel scale."""

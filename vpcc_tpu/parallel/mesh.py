@@ -1,15 +1,15 @@
 """Device-mesh sharding of the V-PCC pipeline.
 
 The reference is a single-node codec whose concurrency axes are TBB loops
-(SURVEY.md §2.4); the TPU-native scale-out maps them onto a
+(SURVEY.md §2.4); the scale-out here maps them onto a
 `jax.sharding.Mesh`:
 
 - frame axis  -> data parallelism over chips (all-intra GOFs are
   embarrassingly parallel; reference TBB frame loops
   PCCEncoder.cpp:344-350);
-- point axis  -> intra-chip vectorization (vmap/Pallas grids);
+- point axis  -> intra-device vectorization (vmap);
 - tile axis   -> atlas-tile parallelism (later phase);
-- GOF axis    -> cross-host DCN boundary (natural checkpoint unit).
+- GOF axis    -> cross-host boundary (natural checkpoint unit).
 """
 
 from __future__ import annotations
@@ -87,7 +87,7 @@ def segment_frames_sharded(
 # ---------------------------------------------------------------------------
 # full encode step over the mesh (VERDICT item 6): segmentation + wavefront
 # video coding (with cross-frame reference exchange over the frame axis — an
-# ICI ppermute when frames live on different chips) + point reconstruction,
+# collective permute when frames live on different devices) + point reconstruction,
 # all under one jit with frame-axis NamedShardings.
 
 def full_encode_step_batch(

@@ -16,6 +16,12 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 
+def ctc_cfg(layer: str, name: str) -> Path:
+    """Path of one file of the in-repo CTC cfg tree (cfg/common, condition,
+    sequence, rate), e.g. ctc_cfg("rate", "ctc-r3")."""
+    return Path(__file__).resolve().parents[2] / "cfg" / layer / f"{name}.cfg"
+
+
 def _intlist(s: str) -> List[int]:
     return [int(x) for x in s.split(",") if x != ""]
 
@@ -211,7 +217,7 @@ class VPCCConfig:
         unimplemented tool should say so rather than silently no-op
         (VERDICT r4 weak #7).  Returns the ignored key names; prints via
         `log` (default: print) when any exist.  Keys that merely configure
-        external-tool paths the TPU build replaces natively (HM/HDRTools
+        external-tool paths this build replaces natively (HM/HDRTools
         cfg pointers) are classed separately so real tool gaps stand out."""
         external = {
             "colorSpaceConversionConfig", "inverseColorSpaceConversionConfig",

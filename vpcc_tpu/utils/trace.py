@@ -6,7 +6,7 @@ per trace type: codec, bitstream, picture/frame conformance traces),
 `pcc::chrono::Stopwatch` wall/user timers (PCCCommon PCCChrono.h) and
 `getPeakMemory` (PCCMemory.h:52).
 
-TPU additions: `device_profile` wraps jax.profiler for Perfetto traces of
+Additions: `device_profile` wraps jax.profiler for Perfetto traces of
 the device stages.
 """
 

@@ -3,9 +3,9 @@
 Reference: `PCCVirtualVideoEncoder<T>::create(codecId)`
 (source/lib/PccLibVideoEncoder/include/PCCVirtualVideoEncoder.h:67-74)
 selects HM/JM/VTM/...; here the codec id (signalled in our VPS) selects
-between the TPU-native transform codec and the lossless fallback.
+between the native transform codecs and the lossless fallback.
 
-Substream coders are stateful: in random-access/low-delay GOPs the TPU codec
+Substream coders are stateful: in random-access/low-delay GOPs the native codec
 predicts P-frames from the previous decoded frame (temporal residual coding),
 so encoder and decoder both thread per-substream reference state.
 """
@@ -180,7 +180,7 @@ class GeometrySubstreamEncoder:
             occ=occ, deblock=False, weight=weight, motion=motion, defer=True,
         )
         self.ref = rec[0]
-        wrapped = lambda: bytes([v3c.CODEC_TPU_HEVC]) + fin()
+        wrapped = lambda: bytes([v3c.CODEC_NATIVE_HEVC]) + fin()
         return (wrapped if defer else wrapped()), rec[0].astype(jnp.uint16)
 
 
@@ -198,7 +198,7 @@ class GeometrySubstreamDecoder:
         if codec == v3c.CODEC_LOSSLESS_DELTA:
             delta = lossless.decode_plane(payload[1:])
             return ((delta.astype(np.int32) + np.asarray(layer_ref).astype(np.int32)) % 65536).astype(np.uint16)
-        if codec == v3c.CODEC_TPU_HEVC:
+        if codec == v3c.CODEC_NATIVE_HEVC:
             import jax.numpy as jnp
             from vpcc_tpu.video import hevc
 
@@ -266,7 +266,7 @@ class AttributeSubstreamEncoder:
             refs=refs, weight=weight, motion=motion, defer=True,
         )
         self.refs = new_refs
-        wrapped = lambda: bytes([v3c.CODEC_TPU_HEVC]) + fin()
+        wrapped = lambda: bytes([v3c.CODEC_NATIVE_HEVC]) + fin()
         return (wrapped if defer else wrapped()), dec_rgb
 
 
@@ -284,7 +284,7 @@ class AttributeSubstreamDecoder:
         if codec == v3c.CODEC_LOSSLESS_DELTA:
             delta = lossless.decode_plane(payload[1:])
             return ((delta.astype(np.int16) + np.asarray(layer_ref).astype(np.int16)) % 256).astype(np.uint8)
-        if codec == v3c.CODEC_TPU_HEVC:
+        if codec == v3c.CODEC_NATIVE_HEVC:
             from vpcc_tpu.video import hevc
 
             h, w = hevc.peek_rgb_dims(payload[1:])

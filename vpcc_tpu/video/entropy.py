@@ -2,7 +2,7 @@
 
 Builds the shared library on first use (g++ is part of the toolchain) and
 caches it next to the source.  The coder finalizes the bit-serial entropy
-stage on the host while transform/quant/prediction stay on the TPU —
+stage on the host while transform/quant/prediction stay on the device —
 mirroring the wavefront split described in SURVEY.md §7 step 5.
 """
 
@@ -25,6 +25,16 @@ _lock = threading.Lock()
 _lib = None
 
 
+def build_library() -> str:
+    """Compile native/entropy.cpp into the shared library, unconditionally
+    (a copied tree may carry a library built on another host).  Must run
+    before the first coder call loads it."""
+    if _lib is not None:
+        raise RuntimeError("the native coder is already loaded")
+    subprocess.check_call(["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", _LIB])
+    return _LIB
+
+
 def _load():
     global _lib
     if _lib is not None:
@@ -35,9 +45,7 @@ def _load():
         if (not os.path.exists(_LIB)) or (
             os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
         ):
-            subprocess.check_call(
-                ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", _LIB]
-            )
+            build_library()
         lib = ctypes.CDLL(_LIB)
         lib.vpcc_encode_coeffs.restype = ctypes.c_int64
         lib.vpcc_encode_coeffs.argtypes = [

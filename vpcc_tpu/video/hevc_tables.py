@@ -1,10 +1,10 @@
-"""Static tables for the TPU-native HEVC-class video codec (video/hevc.py).
+"""Static tables for the HEVC-class video codec (video/hevc.py).
 
 The reference encodes its video substreams with an external patched HM
 (reference: PCCHMLibVideoEncoderImpl.cpp:92-197, dependencies/cmake/hm.cmake);
 this module re-derives the *constants* an HEVC-class codec needs — angular
 intra prediction taps, integer transform bases, quantizer step tables,
-deblocking thresholds, zigzag scans — reshaped for a TPU execution model:
+deblocking thresholds, zigzag scans — reshaped for batched array programs:
 
 * Every HEVC angular prediction is a 2-tap linear gather over the (4N+1)
   reference-sample vector, so prediction of ALL 35 intra modes for ALL
@@ -185,9 +185,10 @@ def prediction_matrix(n: int):
 
     Every HEVC intra mode (planar, DC, 33 angular) is linear in the
     reference samples with small integer weights, so the whole mode bank
-    is a single (4n+1, 35*n*n) matmul — MXU-friendly, no gathers.  The
-    pre-shift sums stay below 2^16 with <=2^10 inputs, so the f32 matmul
-    is integer-exact on both CPU (true f32) and TPU MXU (bf16x3 passes)."""
+    is a single (4n+1, 35*n*n) matmul, no gathers.  The pre-shift sums
+    stay below 2^16 with <=2^10 inputs, so the f32 matmul is integer-exact
+    on any backend that runs it in true f32 (Precision.HIGHEST: exact for
+    sums below 2^24; a TF32 contraction would not be)."""
     R = 4 * n + 1
     G = np.zeros((R, N_INTRA_MODES, n, n), np.float32)
     dc_shift = n.bit_length()

@@ -2,7 +2,7 @@
 
 Plays the role of the reference's external HM/JM/VTM video codecs
 (reference: source/lib/PccLibVideoEncoder, PCCVirtualVideoEncoder.h:67-74)
-until the TPU-native transform codec (video/intra.py) takes over; remains the
+until the native transform codec (video/intra.py) takes over; remains the
 bit-exact path for lossless conditions.  zlib over a row-delta predictor.
 """
 

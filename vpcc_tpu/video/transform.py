@@ -1,10 +1,10 @@
-"""Block transform + quantization for the TPU-native video codec.
+"""Block transform + quantization for the legacy intra video codec.
 
 Plays the role of HM's transform/quant stage (the reference's video codecs
 are external HM/JM/VTM binaries — reference:
 source/lib/PccLibVideoEncoder/src PCCHMLibVideoEncoderImpl.cpp:92-197).
-TPU-first: the 8x8 DCT-II is two dense 8x8 matmuls per block, batched over
-all blocks of a frame — exactly the MXU's shape; quantization is a fused
+Array form: the 8x8 DCT-II is two dense 8x8 matmuls per block, batched over
+all blocks of a frame; quantization is a fused
 elementwise op.  QP follows the HEVC convention Qstep = 2^((QP-4)/6).
 """
 
@@ -97,7 +97,7 @@ def dc_dpcm(coeffs: jax.Array, blocks_per_row: int | None = None) -> jax.Array:
 
     Because quantization happens before prediction, the decoder inverts this
     with a plain cumulative sum — the whole prediction chain is a parallel
-    prefix-sum, not a sequential block loop (the TPU-first alternative to
+    prefix-sum, not a sequential block loop (the data-parallel alternative to
     HM's raster-order intra DC prediction)."""
     dc = coeffs[:, 0]
     prev = jnp.concatenate([jnp.zeros((1,), dc.dtype), dc[:-1]])
